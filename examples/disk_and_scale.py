@@ -1,4 +1,4 @@
-"""Round-2 capabilities tour: disk-resident serving, recall targets,
+"""Capabilities tour: disk-resident serving, recall targets,
 custom metrics, multi-host slices.
 
 Run on CPU:  JAX_PLATFORMS=cpu python examples/disk_and_scale.py
@@ -11,10 +11,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
 rng = np.random.default_rng(0)
 docs = rng.standard_normal((5000, 64)).astype(np.float32)

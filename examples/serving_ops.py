@@ -3,7 +3,7 @@ capacity-aware adaptive dispatch, and calibration persistence.
 
 Run: JAX_PLATFORMS=cpu python examples/serving_ops.py
 
-Covers the round-4 operational surface:
+Covers the operational surface:
   * the RWMutex concurrency contract (reference graph.go:328): reader
     threads keep serving while a writer mutates;
   * AdaptiveConfig.capacity_arms — reduced-precision HBM rungs as
@@ -21,10 +21,6 @@ import threading
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-import jax
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 from hnsw_tpu import Graph

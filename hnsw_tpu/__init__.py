@@ -1,10 +1,10 @@
-"""hnsw_tpu — a TPU-native vector index & query engine.
+"""hnsw_tpu — a vector index & query engine on an accelerator.
 
 A ground-up rebuild of the capabilities of TFMV/hnsw (Go HNSW library)
 as a batched, array-based, XLA-compiled engine: the hierarchical graph
 lives in HBM as fixed-degree int32 neighbor tables, searches run for
-thousands of queries in lockstep, and every distance evaluation is an
-MXU matmul.
+thousands of queries in lockstep, and every distance evaluation is a
+matmul.
 
 Public API map (reference parity in parentheses):
   Graph               core HNSW index            (hnsw.Graph)

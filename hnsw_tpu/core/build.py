@@ -1,8 +1,8 @@
-"""Bulk batched graph construction — the TPU build path.
+"""Bulk batched graph construction — the accelerator build path.
 
 The reference inserts strictly sequentially (each Add searches the graph
-containing all previous nodes, graph.go:437-531); at TPU scale that is
-the bottleneck (SURVEY.md §3.1). This module builds in WAVES:
+containing all previous nodes, graph.go:437-531); on an accelerator
+that is the bottleneck (SURVEY.md §3.1). This module builds in WAVES:
 
   1. sample all insertion levels up front (same geometric law,
      maxLevel cap evaluated at each node's sequential position);
@@ -51,7 +51,11 @@ def construction_descent(g: DeviceGraph, queries: jnp.ndarray, *, ef: int,
     wave node's nearest m_out snapshot nodes (the "neighborhood" of
     graph.go:500, batched)."""
     metric = canonical_metric(metric)
-    precision = jax.lax.Precision.DEFAULT
+    # HIGHEST: at DEFAULT a GPU runs f32 operands as TF32 (10 significand
+    # bits), and on large-norm l2 data the |a|^2 + |b|^2 - 2ab
+    # cancellation then swamps in-cluster gaps. The hops are
+    # gather-bound, so exact f32 costs little.
+    precision = jax.lax.Precision.HIGHEST
     queries = queries.astype(jnp.float32)
     q_sq = jnp.sum(queries * queries, axis=-1)
     W = queries.shape[0]
@@ -115,8 +119,8 @@ def _diverse_select_dev(cand_i: jnp.ndarray, cand_d: jnp.ndarray,
                         metric: str, diversify: bool) -> jnp.ndarray:
     """Device version of diverse_select (see that docstring): sort by
     distance, dedup, Malkov-heuristic scan via fori_loop, pruned
-    backfill, compact. The [P, C, C] candidate-pairwise block runs on
-    the MXU."""
+    backfill, compact. The [P, C, C] candidate-pairwise block is one
+    batched matmul."""
     P, C = cand_i.shape
     order = jnp.argsort(cand_d, axis=1, stable=True)
     ci = jnp.take_along_axis(cand_i, order, axis=1)
@@ -133,7 +137,7 @@ def _diverse_select_dev(cand_i: jnp.ndarray, cand_d: jnp.ndarray,
     safe = jnp.clip(ci, 0, vectors.shape[0] - 1)
     pv = vectors[safe].astype(jnp.float32)          # [P, C, D]
     gram = jnp.einsum("pcd,ped->pce", pv, pv,
-                      precision=jax.lax.Precision.DEFAULT)
+                      precision=jax.lax.Precision.HIGHEST)
     s = sq[safe]
     if metric == "cosine":
         pd = 1.0 - gram * jax.lax.rsqrt(s[:, :, None] * s[:, None, :] + 1e-30)
@@ -295,7 +299,7 @@ def batch_reverse_insert(neigh_l: np.ndarray, vectors: np.ndarray,
     minus the evictee replenish (bulk-build deviation, see module
     docstring). ``m`` is the LAYER's degree cap and may be smaller than
     the physical row width. ``vectors``/``sq`` are DEVICE arrays; all
-    distance math runs on the TPU, only grouping stays on host.
+    distance math runs on the device, only grouping stays on host.
     """
     if len(tgt) == 0:
         return

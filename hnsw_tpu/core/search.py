@@ -1,14 +1,14 @@
 """Batched hierarchical beam search — the engine's hot path.
 
-TPU-native redesign of the reference's greedy beam search
+Accelerator redesign of the reference's greedy beam search
 (graph.go:94-170 ``layerNode.search``) and layer descent
 (graph.go:534-625 ``Graph.Search``): instead of one pointer-chase with
 Go heaps per query, B queries traverse the graph in lockstep. Each hop:
 
-  1. select each query's best unexpanded pool entry       (VPU argmin)
+  1. select each query's best unexpanded pool entry       (argmin)
   2. gather its M neighbor ids + vectors                  (HBM gather)
-  3. score all B*M candidates at once                     (MXU einsum)
-  4. merge into the per-query pool with lax.top_k         (VPU sort)
+  3. score all B*M candidates at once                     (einsum)
+  4. merge into the per-query pool with lax.top_k         (sort)
 
 The bounded result/candidate heap pair of the reference becomes a single
 fixed-width pool of size P = max(ef, k) with per-entry "expanded" flags —
@@ -107,10 +107,10 @@ def _bitonic_merge(pool_d, pool_i, cand_d, cand_i, P: int):
 def _score_hop(g: DeviceGraph, queries, q_sq, nb_safe, metric, precision):
     """Distances from each query to its gathered candidate slots.
 
-    Preference order (measured, benchmarks/exp/quant_hop.py): f32 row
-    gathers when real vectors are in HBM — XLA row gathers are
-    row-granularity-bound, so int8 rows are ~30% SLOWER (layout +
-    convert), not 4x faster; int8's value is HBM capacity. The int8
+    Preference order: f32 row gathers when real vectors are in HBM —
+    XLA row gathers are bound by the number of rows, not their bytes,
+    so int8 rows are not faster (layout + convert); int8's value is HBM
+    capacity. The int8
     store serves scoring only in the capacity mode (g.vectors is the
     [1, D] placeholder). The per-row dequant scale folds into the Gram
     epilogue, never touching the [B, C, D] tensor. Custom registered
@@ -136,9 +136,10 @@ def _score_hop(g: DeviceGraph, queries, q_sq, nb_safe, metric, precision):
     if cand_vecs.dtype == jnp.float16:
         # fp16 capacity store: its whole value is the 11 mantissa bits
         # that route through tight clusters — don't let fast_math's
-        # DEFAULT precision round the scoring pass back to bf16. The
-        # hop is gather-bound; the einsum cost difference is noise
-        # (same finding as the fp16 neighbor-block path above).
+        # DEFAULT precision round the scoring pass below them (a GPU
+        # runs f32 operands at DEFAULT as TF32: 10 bits). The hop is
+        # gather-bound; the einsum cost difference is noise (same
+        # reasoning as the fp16 neighbor-block path above).
         precision = jax.lax.Precision.HIGHEST
     return gathered_dist(queries, cand_vecs, cand_sq, q_sq,
                          metric=metric, precision=precision)
@@ -160,7 +161,7 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: jnp.ndarray,
 
     ``expand`` > 1 opens the top-E unexpanded pool entries per hop
     instead of one — fewer, fatter hops (larger gathers and einsums that
-    the MXU actually likes) at the cost of a few extra distance
+    the matrix units like) at the cost of a few extra distance
     evaluations. Classic single-candidate expansion is expand=1.
 
     Returns (pool_dists [B, P], pool_ids [B, P]) sorted ascending;
@@ -183,15 +184,16 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: jnp.ndarray,
 
     # NO visited set. The pool is the dedup AND termination structure:
     #   * candidates already in the pool are masked by a broadcast
-    #     compare against pool ids (cheap VPU work) before scoring;
+    #     compare against pool ids (cheap elementwise work) before
+    #     scoring;
     #   * a node evicted from the pool can never re-enter: eviction
     #     means P better entries existed, and the pool only improves;
     #   * same-hop duplicates (diamond frontiers) carry equal distances,
     #     land adjacent after the stable sort, and are masked by
     #     _dedup_adjacent — the freed slots refill at the next merge.
-    # The [B, cap] bitmask / id-table this replaces measured 5.6 ms/hop
-    # at B=1024, cap=16k — 4x the entire gather+score cost. The price is
-    # re-scoring diamond-overlap candidates (~1.2 ms/hop worst case).
+    # A [B, cap] bitmask / id-table would cost a [B, cap] scatter per
+    # hop, far more than the gather+score itself. The price is
+    # re-scoring diamond-overlap candidates.
     # Edges to dead nodes are prefolded to -1 at device-sync time
     # (state.from_host), so the hop gathers no tombstone mask either.
 
@@ -254,8 +256,8 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: jnp.ndarray,
         # best pool entries (equal-best distances) crowd out legitimate
         # tail entries at EVERY merge and then become dedup holes — the
         # pool shrinks over hops (catastrophic on small graphs, wasted
-        # slots at scale). A [B, C, P] broadcast compare is pure VPU
-        # work (~13 us at E=2) — unlike the scatter/gather visited
+        # slots at scale). A [B, C, P] broadcast compare is pure
+        # elementwise work — unlike the scatter/gather visited
         # structures this design removed.
         in_pool = (nbrs[:, :, None] == pool_i[:, None, :]).any(-1)
         nb_ok = nb_ok & (~in_pool)
@@ -310,7 +312,7 @@ def beam_search_layer(g: DeviceGraph, layer: int, queries: jnp.ndarray,
         new_i = jnp.where(nb_ok, nbrs, -1)
 
         # Fused merge: ONE stable multi-operand sort replaces
-        # top_k + two take_along_axis gathers (measured ~4 ms/hop).
+        # top_k + two take_along_axis gathers.
         # The expanded flag rides in bit 30 of the id operand (ids are
         # dense slots << 2^30), so the sort moves 2 operands, not 3.
         # merge="bitonic" exploits the pool's sorted invariant: sort
@@ -386,8 +388,9 @@ def search_graph(g: DeviceGraph, queries: jnp.ndarray, *, k: int, ef: int,
     the entry point. Pass ef_upper=ef for reference-faithful behavior.
 
     ``fast_math`` drops per-hop einsums to DEFAULT matmul precision
-    (bf16 inputs on MXU) — fine for traversal ordering; final layer-0
-    distances are still computed at HIGHEST for exact reported values.
+    (TF32 for f32 operands on a GPU) — fine for traversal ordering;
+    final layer-0 distances are still computed at HIGHEST for exact
+    reported values.
 
     ``device_rerank=False`` skips the f32 rerank of the pool head and
     returns traversal-ordered results — the capacity ("HBM-quantized")
@@ -397,9 +400,9 @@ def search_graph(g: DeviceGraph, queries: jnp.ndarray, *, k: int, ef: int,
 
     ``seed_ids`` ([B, S] slot ids, -1 padded) REPLACES the upper-layer
     descent: the layer-0 pool starts from these pre-selected candidates
-    (scored here). The TPU-first coarse search: one MXU matmul over a
-    pivot subset beats pointer-hopping down HNSW's upper layers, and
-    multiple entry basins help recall on hard data.
+    (scored here). The coarse search: one matmul over a pivot subset
+    replaces pointer-hopping down HNSW's upper layers, and multiple
+    entry basins help recall on hard data.
     """
     metric = canonical_metric(metric)
     precision = (jax.lax.Precision.DEFAULT if fast_math
@@ -471,13 +474,13 @@ def search_graph(g: DeviceGraph, queries: jnp.ndarray, *, k: int, ef: int,
 def pivot_seeds(queries: jnp.ndarray, pvecs: jnp.ndarray, psq: jnp.ndarray,
                 pids: jnp.ndarray, *, s: int, metric: str = "cosine",
                 fast_math: bool = False) -> jnp.ndarray:
-    """Coarse entry selection: one MXU matmul over a pivot subset.
+    """Coarse entry selection: one matmul over a pivot subset.
 
     queries [B, D] x pvecs [P, D] -> per-query s best pivot SLOT ids
-    [B, s] (-1 = none). Feeds search_graph(seed_ids=...) — the TPU-first
+    [B, s] (-1 = none). Feeds search_graph(seed_ids=...) — the
     replacement for HNSW's upper-layer descent (the upper layers exist
-    to find a good entry; a systolic-array scan of ~sqrt(N)-ish pivots
-    does that in one fused op instead of pointer hops).
+    to find a good entry; a matmul scan of ~sqrt(N)-ish pivots does
+    that in one fused op instead of pointer hops).
     """
     metric = canonical_metric(metric)
     precision = (jax.lax.Precision.DEFAULT if fast_math

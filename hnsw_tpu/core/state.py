@@ -152,17 +152,17 @@ def _int8_block_fit(vectors: np.ndarray, metric: str = "cosine",
     neighbor sets for sampled probes scanned against the FULL store
     (chunked; capped at ``max_rows``). Near 1.0 on spread-out data;
     collapses on tightly clustered data, where within-cluster
-    separations (~1e-3 cosine) drown in int8 quantization noise —
-    measured: 1M clustered served at recall 0.33 with int8 blocks vs
-    0.99 without (batch8 serve1m rows).
+    separations (~1e-3 cosine) drown in int8 quantization noise: 1M
+    clustered rows served at recall 0.33 with int8 blocks vs 0.99
+    without.
 
     The scan must run at FULL density: subsampling the store inflates
     the k-NN gaps and the check false-passes — a 131k subsample of 1M
     clustered scored 0.95 while full-density scored far lower and
     serving collapsed. ``max_rows`` therefore defaults to None (scan
     everything, 4M+ included); pass a cap only when a caller knowingly
-    accepts the false-pass risk. Cost: 2 matmuls of [probes, N, D] in
-    chunks, ~2-4 s host time at 1M x 128, ~10-15 s at 4M.
+    accepts the false-pass risk. Cost: 2 host matmuls of
+    [probes, N, D] in chunks.
 
     ``metric`` must match the serving metric, and the check quantizes
     what PRODUCTION quantizes: for cosine the store is prenormalized
@@ -250,7 +250,7 @@ def from_host(vectors: np.ndarray, sq_norms: np.ndarray,
 
     ``block_layout`` additionally materializes layer-0 neighbor-vector
     blocks, built by ONE device gather from an uploaded store — never
-    shipped row-by-row over the host link.
+    shipped row-by-row from the host.
 
     ``block_dtype``: "int8" (global scale, 1 byte/component — the fast
     default for spread-out data), "float16" (2 bytes — needed when
@@ -311,8 +311,8 @@ def from_host(vectors: np.ndarray, sq_norms: np.ndarray,
         qscale = jnp.asarray(pad_rows(s, 0))
 
     if hbm_vectors:
-        # chunked upload: bounds every relay transfer AND skips the
-        # full-size host astype/pad copies (utils/transfer.py)
+        # chunked upload: skips the full-size host astype/pad copies
+        # (utils/transfer.py)
         vec_dev = chunked_put(vectors, 0,
                               shape=(cap, vectors.shape[1]),
                               dtype=store_dtype)
@@ -346,8 +346,8 @@ def from_host(vectors: np.ndarray, sq_norms: np.ndarray,
             for lyr in range(1, L):
                 u_l = int((lv >= lyr).sum())
                 # chunked upload with device-side -1 padding: layer 1 at
-                # 16M nodes is ~4.2M occupied rows bucketed to 8.4M —
-                # a single padded upload would be ~0.5 GB over the relay
+                # 16M nodes is ~4.2M occupied rows bucketed to 8.4M,
+                # and the padding is never staged on the host
                 tabs.append(chunked_put(
                     np.ascontiguousarray(nb[lyr][ups[:u_l], :mu]), -1,
                     shape=(bucket_pow2(max(u_l, 1)), mu)))

@@ -204,13 +204,13 @@ class FacetedGraph:
     def batch_search_exact(self, queries, k: int,
                            filters: Sequence[FacetFilter] = ()
                            ) -> List[List[Tuple[Any, float]]]:
-        """Filtered search as ONE masked exact MXU scan — recall 1.0
+        """Filtered search as ONE masked exact scan — recall 1.0
         under ANY filter selectivity.
 
         The reference's over-fetch/post-filter/refill pattern
         (facets/search.go:15-88, mirrored by ``batch_search``) degrades
         when the filter is selective: the k nearest MATCHING vectors may
-        all sit outside the expanded candidate set. TPU-native upgrade:
+        all sit outside the expanded candidate set. Upgrade here:
         resolve the allowed-key set host-side, fold it into the alive
         mask, and brute-force the survivors — exact filtered k-NN at
         exact-tier throughput. Requires the full-HBM vector store

@@ -16,8 +16,8 @@ reference's detached-goroutine recording is an artifact of Go, not a
 capability).
 
 Beyond the reference: the bandit also arbitrates this engine's CAPACITY
-tiers — ``exact_fast`` (bf16 MXU scan + hardware approx top-k + f32
-rerank, same device table as ``exact``) joins the strategy set, the
+tiers — ``exact_fast`` (bf16 scan + widened top-k + f32 rerank, same
+device table as ``exact``) joins the strategy set, the
 exact tier honors ``HybridConfig.exact_hbm_dtype`` (bf16/int8/auto HBM
 tables for N beyond f32 HBM), and a periodic oracle probe
 (AdaptiveConfig.recall_probe_interval) feeds MEASURED recall into the
@@ -42,11 +42,11 @@ from hnsw_tpu.telemetry import (DistanceStats, MetricsWindow, QueryMetrics)
 STRATEGIES = ("exact", "exact_fast", "lsh", "hnsw", "hybrid", "ivf")
 #: strategies the ε-greedy arm may explore (reference explores its three
 #: base strategies, adaptive.go:199; ``exact_fast`` is this engine's
-#: capacity tier — bf16 scan + hardware approx top-k + f32 rerank — and
-#: must be explored for the bandit to discover its latency edge;
-#: ``ivf`` is the engine's measured best large-N clustered tier —
-#: HybridConfig.large_strategy defaults to it — so the flagship bandit
-#: must be able to discover and elect it too, VERDICT r4 item 4).
+#: capacity tier — bf16 scan + widened top-k + f32 rerank — and must be
+#: explored for the bandit to discover its latency edge; ``ivf`` is the
+#: engine's large-N clustered tier — HybridConfig.large_strategy
+#: defaults to it — so the flagship bandit must be able to discover and
+#: elect it too).
 EXPLORE_STRATEGIES = ("exact", "exact_fast", "lsh", "hnsw", "ivf")
 
 
@@ -111,7 +111,7 @@ class AdaptiveSelector:
         """Vectorized batch selection with an exploration QUOTA.
 
         Same decision rules as select_strategy, restructured for
-        batches (VERDICT r2 weak #2: per-query ε-greedy coin flips
+        batches (per-query ε-greedy coin flips
         fragmented every batch into small padded device groups):
 
           * dataset_size / dim / the performance override are
@@ -253,9 +253,8 @@ class AdaptiveHybridIndex:
                             num_tables=self.hcfg.num_hash_tables,
                             num_bits=self.hcfg.num_hash_bits,
                             seed=self.hcfg.seed)
-        # the engine's measured large-N clustered tier (recall 1.0 @
-        # 6.4k qps on random 10k with auto-nprobe; HybridIndex's
-        # large_strategy default) — same parameterization as
+        # the engine's large-N clustered tier (auto-nprobe;
+        # HybridIndex's large_strategy default) — same parameterization as
         # index/hybrid.py:70-74 so the bandit arbitrates the identical
         # tier the tiered dispatcher ships
         from hnsw_tpu.index.ivf import IVFIndex
@@ -263,8 +262,7 @@ class AdaptiveHybridIndex:
                             nprobe=self.hcfg.ivf_nprobe,
                             metric=self.hcfg.metric,
                             seed=self.hcfg.seed)
-        #: CAPACITY arms (AdaptiveConfig.capacity_arms, VERDICT r3 item
-        #: 8): one strategy `exact_<rung>` per reduced-precision HBM
+        #: CAPACITY arms (AdaptiveConfig.capacity_arms): one strategy `exact_<rung>` per reduced-precision HBM
         #: rung, served from an ExactIndex SHARING the exact tier's
         #: slots + host store (no 2x host RAM) but with its own
         #: reduced-precision device table. The oracle probes + quality
@@ -353,7 +351,7 @@ class AdaptiveHybridIndex:
 
     def batch_delete(self, keys: Sequence[Hashable]) -> List[bool]:
         """One vectorized graph in-edge sweep for the whole batch
-        (adaptive_hybrid.go delete fan-out, batched — VERDICT r3)."""
+        (adaptive_hybrid.go delete fan-out, batched)."""
         a = self.exact.batch_delete(keys)
         self._mark_capacity_dirty(len(keys))
         b = self.graph.batch_delete(keys)

@@ -3,7 +3,7 @@
 K-means-flavored routing: random unit centroids (seed 42 like the
 reference, partitioner.go:52 — with its squared-norm bug fixed),
 nearest-centroid assignment as one device matmul, mean-update, and full
-rebalance. On TPU this doubles as the shard-routing layer for
+rebalance. On a device mesh this doubles as the shard-routing layer for
 partition-parallel search (parallel/sharded.partitioned_graph_search).
 """
 

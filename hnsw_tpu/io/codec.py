@@ -114,7 +114,7 @@ def _payload(graph) -> dict:
     calib = graph.calibration_state()
     if calib["ef_calib"] or calib["ef_default"] is not None:
         # persist calibrate_ef results: a reopened 8M index must not
-        # re-pay the minutes-long host oracle scan (VERDICT r3 weak #8)
+        # re-pay the minutes-long host oracle scan
         payload["calib"] = np.frombuffer(
             json.dumps(calib).encode(), dtype=np.uint8)
     return payload

@@ -134,8 +134,7 @@ class DiskGraph:
             if (have_struct and base_keys and delta <= max(
                     1, int(self.INCREMENTAL_REOPEN_MAX_DELTA
                            * len(base_keys)))):
-                # INCREMENTAL reopen (VERDICT r2 missing #3; reference
-                # overlay semantics parquet/incremental.go:237-352):
+                # INCREMENTAL reopen (reference overlay semantics parquet/incremental.go:237-352):
                 # restore the persisted structure, then replay only the
                 # WAL delta — one buffered add no longer turns a 1M
                 # reopen into a full rebuild.
@@ -229,9 +228,8 @@ class DiskGraph:
         index columns and written dictionary-encoded
         (T.write_edges_indexed): the n keys are encoded ONCE, never per
         edge — persisting 1M x ~48 edges is seconds of numpy + one
-        Parquet write instead of minutes of Python loops (VERDICT r2
-        missing #2; reference streams builders, parquet/graph.go:
-        649-788)."""
+        Parquet write instead of minutes of Python loops (the reference
+        streams builders, parquet/graph.go:649-788)."""
         g = g or self.graph
         n = g.slots.capacity_used
         host = g.host
@@ -294,7 +292,7 @@ class DiskGraph:
             "count": int(host.count),
             "saved_at": time.time(),
             # reopened indexes skip the minutes-long calibrate_ef host
-            # oracle scan (VERDICT r3 weak #8)
+            # oracle scan
             "calib": g.calibration_state(),
         }, self.fmt)
 
@@ -324,7 +322,7 @@ class DiskGraph:
 
     def batch_delete(self, keys: Sequence[Hashable]) -> List[bool]:
         """One in-edge sweep for the whole batch + one WAL record per
-        successful key (batched under the WAL lock — VERDICT r3)."""
+        successful key (batched under the WAL lock)."""
         flags = self.graph.batch_delete(keys)
         for k, ok in zip(keys, flags):
             if ok:

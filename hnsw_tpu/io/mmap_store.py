@@ -2,7 +2,7 @@
 parquet VectorStore (parquet/vector_ops.go:18-63,321-432): vectors live
 on DISK, RAM holds only a bounded working set, reads are batched.
 
-TPU-native shape: one flat little-endian f32 row file memory-mapped with
+Shape here: one flat little-endian f32 row file memory-mapped with
 ``np.memmap`` (the OS page cache IS the read cache — the reference
 hand-rolls an LRU map because Go gives it no mmap ergonomics), plus a
 small write-through RAM buffer for rows not yet flushed. The same

@@ -231,8 +231,7 @@ def write_edges_indexed(path: str, layer_ids: np.ndarray,
     — but the key columns are Arrow DictionaryArrays built from int32
     index arrays + one dictionary of the n unique keys. The indices are
     numpy arrays end to end: persisting 1M nodes x ~48 edges encodes n
-    keys once instead of 48M times (VERDICT r2 missing #2 — the
-    per-edge Python loops made 1M persists take minutes; the reference
+    keys once instead of 48M times (the per-edge Python loops made 1M persists take minutes; the reference
     streams Arrow builders, parquet/graph.go:649-788).
     """
     enc, kind = encode_keys(list(dict_keys))

@@ -1,11 +1,10 @@
-"""Batched distance ops — the TPU-native replacement for the reference's
+"""Batched distance ops — the device replacement for the reference's
 SIMD distance kernels (reference: distance.go:15-22, backed by viterin/vek
 Go-assembly; SURVEY.md §2.8).
 
 Design: every distance in this engine is computed through ONE matmul
-(``queries @ vectors.T`` on the MXU) plus cheap elementwise epilogue on
-the VPU. Cosine / L2 / squared-L2 / dot are all epilogues over the same
-Gram block:
+(``queries @ vectors.T``) plus a cheap elementwise epilogue. Cosine / L2
+/ squared-L2 / dot are all epilogues over the same Gram block:
 
     cosine(a,b)      = 1 - <a,b> / (|a||b|)          (distance.go:16)
     l2(a,b)          = sqrt(|a|^2 + |b|^2 - 2<a,b>)  (distance.go:21)
@@ -73,11 +72,12 @@ def pairwise_dist(queries: jnp.ndarray, vectors: jnp.ndarray,
                   q_sq: Optional[jnp.ndarray] = None,
                   metric: str = "cosine",
                   precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
-    """Dense [Q, N] distance block via one MXU matmul.
+    """Dense [Q, N] distance block via one matmul.
 
     This is the hot op of exact search and of every HNSW hop. ``precision``
     defaults to HIGHEST (f32-accurate) for ground-truth exactness; HNSW
-    traversal may pass DEFAULT for speed — ANN ordering tolerates bf16.
+    traversal may pass DEFAULT for speed (TF32 for f32 operands on a
+    GPU) — ANN ordering tolerates it.
     """
     metric = canonical_metric(metric)
     qf = queries.astype(jnp.float32)

@@ -1,7 +1,7 @@
 """Random-hyperplane LSH ops.
 
 The reference computes per-vector hash bits in a scalar loop
-(hybrid/lsh.go:95-116). TPU-native: hashing T tables x B bits for N
+(hybrid/lsh.go:95-116). Here: hashing T tables x B bits for N
 vectors is ONE [N, D] x [D, T*B] matmul plus a sign/bit-pack epilogue.
 
 Deliberate fix (SURVEY.md §7.4): the reference "normalizes" hyperplanes

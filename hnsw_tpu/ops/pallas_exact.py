@@ -1,29 +1,40 @@
-"""Pallas fused exact-search kernel.
+"""Fused exact-scan + top-k kernel for Hopper GPUs (Pallas, Triton route).
 
-One kernel computes distances AND maintains the running top-k entirely
-on-chip: the [Q, N] score matrix never touches HBM (the XLA path
-materializes per-chunk scores and runs a full-width lax.top_k sort,
-which dominates exact-search time for small k).
+One kernel computes distances AND keeps each query's running top-k in
+registers, so the [Q, N] score matrix never reaches device memory. The
+plain XLA scan (``ops/topk.exact_topk``) writes a [Q, chunk] f32 score
+block per chunk and reads it back for ``lax.top_k``: at B = 8192 and a
+65,536-row chunk that is 2 GiB each way per chunk. A matrix product
+followed by a top-k is a pattern XLA does not fuse.
 
-Layout: grid (Q_tiles, N_chunks), N innermost (sequential reduction).
-Per step: MXU matmul [TQ, D] x [D, TC] -> VPU metric epilogue ->
-PACKED-KEY selection -> merge with the running [TQ, K] accumulator kept
-in the output block (revisited across the reduction dimension).
+Layout: grid (query tiles, N splits), both parallel — no carry between
+blocks, so even B = 1024 fills the card's SMs through the N splits.
+Inside a block a ``fori_loop`` walks the split's column tiles:
 
-Packed-key selection: bitcast each f32 distance to an order-preserving
-int32, clear the low log2(TC) bits, OR in the column id. One [TQ, TC]
-int32 tensor then carries BOTH the ranking and the identity, so each
-top-k extraction pass is one min-reduce + one masked update (~3 VPU
-passes) instead of min + argmin + one-hot-sum (~6) — selection, not the
-matmul, bounds this kernel (measured 1M x 128: 26.8k qps selection-bound
-vs 17k qps for the XLA scan). The packing costs <= 2^-12 relative
-distance precision inside the kernel; exact_topk_fused reranks the
-(k+pad)-wide winner pool against the f32 vectors OUTSIDE the kernel, so
-reported distances and the final order are f32-exact.
+1. ``pl.dot`` of the [TQ, D] query tile with a [TC, D] vector tile
+   (bf16 operands on the fast path; TF32x3 for f32 — both accumulate in
+   f32);
+2. a ranking-equivalent epilogue (per-query constants dropped: they do
+   not change a row's order);
+3. PACKED-KEY selection: each f32 key is mapped to an order-preserving
+   int32 whose low log2(TC) bits are replaced by the column id, so one
+   min-reduce yields both the best key and its column;
+4. a ``while_loop`` that inserts a tile's keys into the running set
+   only while some row's tile minimum beats that row's current k_sel-th
+   key. Late tiles rarely hold a winner for any row of the block, so
+   most tiles cost one reduction and no extraction pass.
+
+Each block writes its k_sel partial winners; the final merge over the N
+splits and the f32 rerank (``Precision.HIGHEST``) run in XLA
+(:func:`exact_topk_fused`), so reported distances and order are f32-exact.
+
+Precision margin: packing costs at most 2^-16 of a key's magnitude, and
+the screen's matmul error is ~2^-9 (bf16) or ~2^-21 (TF32x3) of |q||v|.
+The true top-k only has to survive into the k_sel = next_pow2(k + 6)
+screened candidates, which the f32 rerank then orders exactly.
 
 This is the role viterin/vek's SIMD assembly plays in the reference
-(distance.go:8; SURVEY.md §2.8) — the one place it drops to native —
-done the TPU way.
+(distance.go:8; SURVEY.md §2.8) — the one place it drops to native.
 """
 
 from __future__ import annotations
@@ -35,14 +46,66 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from hnsw_tpu.config import canonical_metric
 from hnsw_tpu.ops.distance import INF_DIST
 
-_EPS = 1e-30
 _INT32_MIN = np.int32(-2147483648)
 _INT32_MAX = np.int32(2147483647)
+
+#: int32 keys at or above this are masked rows / unfilled slots.
+_INVALID_KEY_FLOOR = int(
+    np.int32(np.float32(INF_DIST).view(np.int32)) & ~0xFFFF)
+
+#: metrics the kernel's epilogue implements.
+FUSED_METRICS = ("cosine", "l2", "sqeuclidean", "dot")
+#: widest running set a block keeps in registers.
+MAX_KSEL = 128
+#: smallest store (rows) at which ExactIndex takes the fused kernel on a
+#: GPU: the smallest N measured, where it already beat XLA's scan 2.8x
+#: (B = 1024) to 9.4x (B = 8192) on an H100. Smaller stores keep XLA's
+#: single-chunk scan until measured.
+FUSED_MIN_ROWS = 16384
+
+# Tiles: TQ query rows x TC vector rows per step. Powers of two for
+# Triton; a [64, 128] f32 score tile plus its int32 keys is 64 KB of
+# registers over 4 warps, and the pipelined [TC, D] vector tiles stay
+# far inside 227 KB of shared memory at D <= 512.
+TQ = 64
+TC = 128
+NUM_WARPS = 4
+NUM_STAGES = 3
+#: blocks to aim for: two per SM of an H100 (132 SMs).
+_TARGET_BLOCKS = 264
+
+
+def ksel_for(k: int) -> int:
+    """Screened candidates per query for a final top-k."""
+    return max(16, 1 << int(np.ceil(np.log2(k + 6))))
+
+
+def fused_applies(platform: str, n_rows: int, k: int, metric: str) -> bool:
+    """Whether ExactIndex serves an f32-store scan with the fused kernel.
+
+    Only a GPU compiles it (Triton); the interpreter is for tests. Small
+    stores stay on XLA's scan (``FUSED_MIN_ROWS``)."""
+    return (platform == "gpu" and n_rows >= FUSED_MIN_ROWS
+            and ksel_for(k) <= MAX_KSEL
+            and canonical_metric(metric) in FUSED_METRICS)
+
+
+def scan_topk(queries, vectors, v_sq, valid, *, k: int, metric: str,
+              fast_math: bool = False):
+    """Exact k-NN by the scan this platform serves best: the fused
+    kernel where :func:`fused_applies`, XLA's chunked
+    ``ops/topk.exact_topk`` elsewhere. Same results either way."""
+    from hnsw_tpu.ops.topk import exact_topk
+    if fused_applies(jax.devices()[0].platform, vectors.shape[0], k, metric):
+        return exact_topk_fused(queries, vectors, v_sq, valid, k=k,
+                                metric=metric, fast_math=fast_math)
+    return exact_topk(queries, vectors, v_sq, valid, k=k, metric=metric,
+                      fast_math=fast_math)
 
 
 def _mono_int32(d: jnp.ndarray) -> jnp.ndarray:
@@ -55,202 +118,183 @@ def _mono_int32(d: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(u >= 0, u, _INT32_MIN - u)
 
 
-#: int32 keys at or above this are masked / INF_DIST sentinels.
-_INVALID_KEY_FLOOR = int(
-    np.int32(np.float32(INF_DIST).view(np.int32)) & ~0xFFFF)
-
-
-def _extract_k_packed(pk: jnp.ndarray, k: int) -> jnp.ndarray:
-    """k smallest packed keys per row via k (min + masked-update) passes.
-
-    pk: [TQ, W] int32. Returns [TQ, k] int32, ascending. Equal keys are
-    masked together (duplicate ids collapse — harmless: duplicates only
-    arise from the merge accumulator re-seeing its own entries).
-    UNROLLED python loop: a fori_loop carrying the [TQ, W] working set
-    measured 10x slower (Mosaic spills large loop carries); unrolled
-    passes fit the 16 MB VMEM scoped stack at tc<=1024.
-    """
-    out = []
-    cur = pk
-    for _ in range(k):
-        m = jnp.min(cur, axis=1)
-        cur = jnp.where(cur == m[:, None], _INT32_MAX, cur)
-        out.append(m)
-    return jnp.stack(out, axis=1)
-
-
-def _make_kernel(metric: str, k_sel: int, tc: int, fast_math: bool):
+def _make_kernel(metric: str, k_sel: int, tc: int, n_tiles: int,
+                 fast_math: bool, interpret: bool):
     col_mask = np.int32(tc - 1)
     clear_mask = np.int32(~(tc - 1))
+    if fast_math:
+        precision = None
+    elif interpret:
+        # the CPU interpreter has no TF32; it computes the same screen
+        # at f32, which only tightens the margin
+        precision = jax.lax.Precision.HIGHEST
+    else:
+        precision = jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3
 
-    def kernel(q_ref, v_ref, vsq_ref, valid_ref, outk_ref, outi_ref):
-        j = pl.program_id(1)
-
-        @pl.when(j == 0)
-        def _():
-            outk_ref[:] = jnp.full_like(outk_ref, _INT32_MAX)
-            outi_ref[:] = jnp.full_like(outi_ref, -1)
-
-        q = q_ref[:]                                  # [TQ, D]
-        v = v_ref[:]                                  # [TC, D]
-        q_sq = jnp.sum(q * q, axis=1, keepdims=True)  # f32 before cast
+    def kernel(q_ref, v_ref, vsq_ref, outk_ref, outi_ref):
+        split = pl.program_id(1)
+        q = q_ref[...]                                  # [TQ, D] f32
+        tq = q.shape[0]
         if fast_math:
-            # bf16 MXU inputs, f32 accumulation: 2x matmul throughput;
-            # the wrapper's f32 rerank restores exact ordering
             q = q.astype(jnp.bfloat16)
-            v = v.astype(jnp.bfloat16)
-        gram = jax.lax.dot_general(
-            q, v, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)       # [TQ, TC]
-        vsq = vsq_ref[:]                              # [TC]
-        if metric == "dot":
-            d = -gram
-        elif metric == "cosine":
-            d = 1.0 - gram * jax.lax.rsqrt(q_sq * vsq[None, :] + _EPS)
-        else:
-            d = jnp.maximum(q_sq + vsq[None, :] - 2.0 * gram, 0.0)
-            if metric == "l2":
-                d = jnp.sqrt(d)
-        d = jnp.where(valid_ref[:][None, :], d, INF_DIST)
-
-        tq = d.shape[0]
         cols = jax.lax.broadcasted_iota(jnp.int32, (tq, tc), 1)
-        pk = (_mono_int32(d) & clear_mask) | cols     # [TQ, TC]
+        slots = jax.lax.broadcasted_iota(jnp.int32, (tq, k_sel), 1)
+        split_base = split * (n_tiles * tc)
 
-        tile_keys = _extract_k_packed(pk, k_sel)      # [TQ, k_sel]
-        tile_ids = (tile_keys & col_mask) + (j * tc)
+        def tile(t, carry):
+            run_k, run_i, thr = carry
+            v = v_ref[pl.ds(t * tc, tc), :]              # [TC, D]
+            vsq = vsq_ref[pl.ds(t * tc, tc)]             # [TC]; < 0 = masked
+            if fast_math:
+                v = v.astype(jnp.bfloat16)
+            g = pl.dot(q, v, trans_b=True, precision=precision)
+            if metric == "dot":
+                key = -g
+            elif metric == "cosine":        # |q| is a per-row constant
+                key = -g * jax.lax.rsqrt(jnp.maximum(vsq, 0.0)
+                                         + 1e-30)[None, :]
+            else:                       # l2 / sqeuclidean: |q|^2 dropped
+                key = vsq[None, :] - 2.0 * g
+            pk = (_mono_int32(key) & clear_mask) | cols
+            pk = jnp.where(vsq[None, :] >= 0.0, pk, _INT32_MAX)
+            m = jnp.min(pk, axis=1)
+            tile_base = split_base + t * tc
 
-        # merge with the running accumulator: 2*k_sel-wide extraction;
-        # ids recovered by masked max (keys are globally comparable).
-        # CAVEAT: two DISTINCT candidates from different tiles can share
-        # one packed key (same quantized-distance bucket + same in-tile
-        # column); `sel` then masks both in one pass and max(ids) keeps
-        # only one — a bounded candidate loss (at most one per exact
-        # key collision), absorbed by the caller's k_sel = k+8 margin
-        # and the f32 rerank. Accepted: folding a tile-id bit into the
-        # key would cost packed-id range for a measure-zero event.
-        keys = jnp.concatenate([outk_ref[:], tile_keys], axis=1)
-        ids = jnp.concatenate([outi_ref[:], tile_ids], axis=1)
-        out_k = []
-        out_i = []
-        cur = keys
-        for _ in range(k_sel):
-            m = jnp.min(cur, axis=1)
-            sel = cur == m[:, None]
-            out_k.append(m)
-            out_i.append(jnp.max(jnp.where(sel, ids, -1), axis=1))
-            cur = jnp.where(sel, _INT32_MAX, cur)
-        outk_ref[:] = jnp.stack(out_k, axis=1)
-        outi_ref[:] = jnp.stack(out_i, axis=1)
+            def pending(c):
+                return jnp.max(jnp.where(c[4] < c[2], 1, 0)) > 0
+
+            def insert(c):
+                run_k, run_i, thr, pk, m = c
+                need = (m < thr)[:, None]
+                pos = jnp.argmax(run_k, axis=1)          # current worst
+                hit = (slots == pos[:, None]) & need
+                run_k = jnp.where(hit, m[:, None], run_k)
+                run_i = jnp.where(hit, (tile_base + (m & col_mask))[:, None],
+                                  run_i)
+                thr = jnp.max(run_k, axis=1)
+                pk = jnp.where(pk == m[:, None], _INT32_MAX, pk)
+                return run_k, run_i, thr, pk, jnp.min(pk, axis=1)
+
+            run_k, run_i, thr, _, _ = jax.lax.while_loop(
+                pending, insert, (run_k, run_i, thr, pk, m))
+            return run_k, run_i, thr
+
+        init = (jnp.full((tq, k_sel), _INT32_MAX, jnp.int32),
+                jnp.full((tq, k_sel), -1, jnp.int32),
+                jnp.full((tq,), _INT32_MAX, jnp.int32))
+        run_k, run_i, _ = jax.lax.fori_loop(0, n_tiles, tile, init)
+        outk_ref[...] = run_k
+        outi_ref[...] = run_i
 
     return kernel
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("k_sel", "metric", "tq", "tc",
-                                    "interpret", "fast_math"))
-def pallas_exact_screen(queries: jnp.ndarray, vectors: jnp.ndarray,
-                        v_sq: jnp.ndarray, valid: jnp.ndarray, *,
-                        k_sel: int, metric: str = "cosine", tq: int = 256,
-                        tc: int = 1024, interpret: bool = False,
-                        fast_math: bool = False
-                        ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused screening pass: (packed keys [Q, k_sel], ids [Q, k_sel]).
+def plan(n_q: int, n: int, d: int) -> Tuple[int, int, int, int]:
+    """(padded Q, padded D, N splits, padded N) for a launch.
 
-    queries [Q, D], vectors [N, D]; Q % tq == 0 and N % tc == 0 (callers
-    pad; see exact_topk_fused). k_sel <= 128. Keys >= _INVALID_KEY_FLOOR
-    mark masked rows. Key order is distance order quantized to the low
-    log2(tc) mantissa bits — callers rerank in f32.
-    """
-    metric = canonical_metric(metric)
-    if k_sel > 128:
-        raise ValueError("pallas_exact_screen supports k_sel <= 128")
-    if tc & (tc - 1):
-        raise ValueError("tc must be a power of two (key packing)")
-    Q, D = queries.shape
-    N = vectors.shape[0]
-    assert Q % tq == 0 and N % tc == 0, (Q, N, tq, tc)
-    grid = (Q // tq, N // tc)
-    kernel = _make_kernel(metric, k_sel, tc, fast_math)
-    out_k, out_i = pl.pallas_call(
+    Splits N until the grid holds about two blocks per SM; each split is
+    a whole number of TC tiles."""
+    q_pad = -(-n_q // TQ) * TQ
+    d_pad = max(16, 1 << int(np.ceil(np.log2(max(d, 1)))))
+    n_tiles_total = -(-n // TC)
+    splits = 1
+    while (splits * 2 * (q_pad // TQ) <= _TARGET_BLOCKS
+           and splits * 2 <= n_tiles_total):
+        splits *= 2
+    n_pad = -(-n_tiles_total // splits) * splits * TC
+    return q_pad, d_pad, splits, n_pad
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("k_sel", "metric", "splits",
+                                    "interpret", "fast_math"))
+def fused_screen(queries: jnp.ndarray, vectors: jnp.ndarray,
+                 vsq_masked: jnp.ndarray, *, k_sel: int, metric: str,
+                 splits: int, interpret: bool = False,
+                 fast_math: bool = False
+                 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Screening pass: per-split winners (keys [Q, splits*k_sel], ids).
+
+    queries [Q, D] f32 and vectors [N, D] with Q % TQ == 0, N % (splits *
+    TC) == 0 and D a power of two >= 16 (see :func:`plan`).
+    ``vsq_masked`` holds squared norms, negative for masked rows. Keys at
+    or above ``_INVALID_KEY_FLOOR`` mark empty slots."""
+    q_n, d = queries.shape
+    n = vectors.shape[0]
+    assert q_n % TQ == 0 and n % (splits * TC) == 0, (q_n, n, splits)
+    ns = n // splits
+    kernel = _make_kernel(metric, k_sel, TC, ns // TC, fast_math, interpret)
+    return pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(q_n // TQ, splits),
         in_specs=[
-            pl.BlockSpec((tq, D), lambda i, j: (i, 0)),
-            pl.BlockSpec((tc, D), lambda i, j: (j, 0)),
-            pl.BlockSpec((tc,), lambda i, j: (j,)),
-            pl.BlockSpec((tc,), lambda i, j: (j,)),
+            pl.BlockSpec((TQ, d), lambda i, s: (i, 0)),
+            pl.BlockSpec((ns, d), lambda i, s: (s, 0)),
+            pl.BlockSpec((ns,), lambda i, s: (s,)),
         ],
         out_specs=[
-            pl.BlockSpec((tq, k_sel), lambda i, j: (i, 0)),
-            pl.BlockSpec((tq, k_sel), lambda i, j: (i, 0)),
+            pl.BlockSpec((TQ, k_sel), lambda i, s: (i, s)),
+            pl.BlockSpec((TQ, k_sel), lambda i, s: (i, s)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((Q, k_sel), jnp.int32),
-            jax.ShapeDtypeStruct((Q, k_sel), jnp.int32),
+            jax.ShapeDtypeStruct((q_n, splits * k_sel), jnp.int32),
+            jax.ShapeDtypeStruct((q_n, splits * k_sel), jnp.int32),
         ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary")),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES),
         interpret=interpret,
-    )(queries.astype(jnp.float32), vectors.astype(jnp.float32),
-      v_sq.astype(jnp.float32), valid)
-    return out_k, out_i
+        name="exact_scan_topk",
+    )(queries, vectors, vsq_masked)
 
 
+@functools.partial(jax.jit,
+                   static_argnames=("k", "metric", "interpret", "fast_math"))
 def exact_topk_fused(queries, vectors, v_sq, valid, *, k: int,
                      metric: str = "cosine", interpret: bool = False,
                      fast_math: bool = False):
-    """Fused exact k-NN: Pallas screening + f32 rerank of the winners.
+    """Fused exact k-NN: kernel screening + f32 rerank of the winners.
 
-    Mirrors ops/topk.exact_topk's signature; returns (dists [Q, k],
-    idx [Q, k]) with f32-exact distances and ordering (the packed-key
-    screen extracts k+pad candidates; the true top-k survives the
-    <= 2^-12 relative key quantization with that margin). k <= 120.
-    """
+    Same signature and results as ``ops/topk.exact_topk``: (dists [Q, k],
+    idx [Q, k]) with f32-exact distances and order; rows beyond the valid
+    count get INF_DIST / -1. Requires ``ksel_for(k) <= MAX_KSEL``."""
     metric = canonical_metric(metric)
+    if metric not in FUSED_METRICS:
+        raise ValueError(f"fused scan does not implement metric {metric!r}")
+    k_sel = ksel_for(k)
+    if k_sel > MAX_KSEL:
+        raise ValueError(f"fused scan supports k <= {MAX_KSEL - 6}, got {k}")
     queries = jnp.asarray(queries, jnp.float32)
-    vectors = jnp.asarray(vectors)
-    Q, D = queries.shape
-    N = vectors.shape[0]
-    k_sel = min(min(k + 8, 128), N)
-    tq = 256 if Q >= 256 else max(8, Q)
-    # tc=1024: [TQ, TC] kernel buffers must fit the ~16 MB VMEM scoped
-    # stack (tc=2048 measured 18-20 MB and failed to compile at 1M)
-    tc = 1024 if N >= 1024 else max(128, int(2 ** np.ceil(np.log2(N))))
-    qp = (-Q) % tq
-    np_ = (-N) % tc
-    if qp:
-        queries_p = jnp.pad(queries, ((0, qp), (0, 0)))
-    else:
-        queries_p = queries
-    if np_:
-        vectors_p = jnp.pad(vectors, ((0, np_), (0, 0)))
-        v_sq_p = jnp.pad(v_sq, (0, np_))
-        valid_p = jnp.pad(valid, (0, np_), constant_values=False)
-    else:
-        vectors_p, v_sq_p, valid_p = vectors, v_sq, valid
-    keys, ids = pallas_exact_screen(queries_p, vectors_p, v_sq_p, valid_p,
-                                    k_sel=k_sel, metric=metric, tq=tq,
-                                    tc=tc, interpret=interpret,
-                                    fast_math=fast_math)
-    keys, ids = keys[:Q], ids[:Q]
+    q_n, d = queries.shape
+    n = vectors.shape[0]
+    q_pad, d_pad, splits, n_pad = plan(q_n, n, d)
+    vsq_masked = jnp.where(valid, v_sq.astype(jnp.float32), -1.0)
+    qp = jnp.pad(queries, ((0, q_pad - q_n), (0, d_pad - d)))
+    vp, sp = vectors, vsq_masked
+    if n_pad != n or d_pad != d:
+        vp = jnp.pad(vectors, ((0, n_pad - n), (0, d_pad - d)))
+        sp = jnp.pad(vsq_masked, (0, n_pad - n), constant_values=-1.0)
+    keys, ids = fused_screen(qp, vp, sp, k_sel=k_sel, metric=metric,
+                             splits=splits, interpret=interpret,
+                             fast_math=fast_math)
+    keys, ids = keys[:q_n], ids[:q_n]
+    if splits > 1:                       # merge the splits' winners
+        neg, pos = jax.lax.top_k(-keys, k_sel)
+        keys = -neg
+        ids = jnp.take_along_axis(ids, pos, axis=1)
     ok = (keys < _INVALID_KEY_FLOOR) & (ids >= 0)
 
     # f32 rerank of the k_sel-wide pool (exact reported distances)
     from hnsw_tpu.ops.distance import gathered_dist
-    safe = jnp.clip(ids, 0, N - 1)
+    safe = jnp.clip(ids, 0, n - 1)
     cv = vectors[safe].astype(jnp.float32)              # [Q, k_sel, D]
     csq = v_sq[safe]
     q_sq = jnp.sum(queries * queries, axis=-1)
-    d = gathered_dist(queries, cv, csq, q_sq, metric=metric,
-                      precision=jax.lax.Precision.HIGHEST)
-    d = jnp.where(ok, d, INF_DIST)
-    kk = min(k, d.shape[1])
-    neg, pos = jax.lax.top_k(-d, kk)
+    dist = gathered_dist(queries, cv, csq, q_sq, metric=metric,
+                         precision=jax.lax.Precision.HIGHEST)
+    dist = jnp.where(ok, dist, INF_DIST)
+    neg, pos = jax.lax.top_k(-dist, k)          # k_sel >= k + 6
     dk = -neg
     ik = jnp.take_along_axis(ids, pos, axis=1)
-    if k > kk:
-        dk = jnp.pad(dk, ((0, 0), (0, k - kk)), constant_values=INF_DIST)
-        ik = jnp.pad(ik, ((0, 0), (0, k - kk)), constant_values=-1)
     ik = jnp.where(dk >= INF_DIST, -1, ik)
     return dk, ik

@@ -1,10 +1,10 @@
 """Top-k selection ops.
 
 The reference's bounded result/candidate heaps (heap/heap.go:42-95,
-graph.go:107-160) collapse on TPU into ``lax.top_k`` over fixed-width
-score rows. For exact search over large N we stream the score matrix in
+graph.go:107-160) collapse into ``lax.top_k`` over fixed-width score
+rows. For exact search over large N we stream the score matrix in
 chunks with a running top-k merge (O(Q*(k+chunk)) memory instead of
-O(Q*N)), which is also the shape a future Pallas fused kernel takes.
+O(Q*N)); ``ops/pallas_exact`` fuses the same scan into one kernel.
 """
 
 from __future__ import annotations
@@ -43,33 +43,25 @@ def exact_topk(queries: jnp.ndarray, vectors: jnp.ndarray,
                ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Exact k-NN: brute-force scan of all vectors.
 
-    TPU-native equivalent of the reference ExactIndex linear scan
-    (hybrid/exact.go:61-111) — but batched: one call scores Q queries
-    against N vectors via chunked MXU matmuls with a running top-k.
+    Batched equivalent of the reference ExactIndex linear scan
+    (hybrid/exact.go:61-111): one call scores Q queries against N
+    vectors via chunked matmuls with a running top-k.
 
     queries: [Q, D]; vectors: [N, D]; v_sq: [N]; valid: [N] bool.
     Returns (dists [Q, k], indices [Q, k]); invalid rows get INF_DIST/-1.
 
-    ``fast_math`` scans with bf16 MXU inputs (one MXU pass instead of
-    HIGHEST's six) and selects per-chunk winners with the TPU's
-    hardware-binned ``approx_min_k`` (single PartialReduce pass; XLA's
-    exact TopK costs ~k extraction passes over the whole chunk and
-    dominates the scan — measured 3x the matmul at 1M), over a widened
-    candidate set (margin k+16), then reranks the winners in f32.
-    Results stay exact-ordered except for candidates the bf16+approx
-    pass dropped entirely; the true top-k are top-k *within their
-    chunk*, where the binned reduction's misses concentrate far deeper,
-    so measured recall vs the f32 oracle stays >=0.999.
+    ``fast_math`` scans with bf16 operands (f32 accumulation), keeps a
+    widened candidate set per chunk (k + max(4, k // 8)), selects once
+    over the stacked per-chunk winners and reranks them in f32 at
+    HIGHEST. Results stay exact-ordered except for candidates the bf16
+    scan dropped from the widened set entirely.
     """
     n = vectors.shape[0]
     q = queries.astype(jnp.float32)
     q_sq = jnp.sum(q * q, axis=-1)
     if fast_math:
-        # margin k+4 and chunk 65536, both measured at 1M B=8192
-        # (rerank1m batch11): k+4 171.9k qps @ .99962 vs k+16 130.7k
-        # @ .99967; chunk 65536 167.5k (fewer approx passes). The
-        # per-chunk [Q, chunk] f32 dist block is the memory bound
-        # (2.1 GB at Q=8192 x 65536) — halve the chunk for larger Q.
+        # the per-chunk [Q, chunk] f32 score block is the memory bound
+        # (2 GiB at Q = 8192 x 65536): halve the chunk for larger Q
         k_scan = min(k + max(4, k // 8), n)
         chunk = 65536 if q.shape[0] <= 8192 else 32768
     else:
@@ -87,22 +79,9 @@ def exact_topk(queries: jnp.ndarray, vectors: jnp.ndarray,
             d = pairwise_dist(q, vec, v_sq=sq, q_sq=q_sq, metric=metric)
         return jnp.where(vld[None, :], d, INF_DIST)
 
-    def select(d, kk, rt=0.95):
-        if fast_math:
-            # recall_target is a big cost lever: 0.99 at the per-chunk
-            # sites measured 16x SLOWER at 1M than 0.95 (130.8k -> 8.1k
-            # qps, rerank1m batch10 rows) — the binned reduction's
-            # intermediate size explodes. Chunked scans keep 0.95: the
-            # margin (kk > k), per-chunk winner stacking, and the f32
-            # rerank give measured recall .9997 at 1M. Only the
-            # SINGLE-chunk path needs 0.99 (no chunk margin; 0.95 left
-            # small-N fast recall at ~.987).
-            return jax.lax.approx_min_k(d, kk, recall_target=rt)
-        return topk_smallest(d, kk)
-
     if n <= chunk:
         d = score(vectors, v_sq, valid)
-        dk, ik = select(d, min(k_scan, n), rt=0.99)
+        dk, ik = topk_smallest(d, min(k_scan, n))
     else:
         # Chunked scan with running top-k merge.
         n_pad = ((n + chunk - 1) // chunk) * chunk
@@ -118,19 +97,18 @@ def exact_topk(queries: jnp.ndarray, vectors: jnp.ndarray,
         kk = min(k_scan, chunk)
         bases = jnp.arange(n_chunks, dtype=jnp.int32) * chunk
         if fast_math and n_chunks * kk <= 8192:
-            # Stack per-chunk winners and select ONCE at the end: the
-            # running per-chunk merge was 61 extra top_k calls at 1M
-            # (measured 134 of 177 ms/batch; select1m rows).
+            # stack per-chunk winners and select ONCE at the end instead
+            # of a running merge (one top_k per chunk fewer)
             def body(_, xs):
                 vec, sq, vld, base = xs
                 d = score(vec, sq, vld)
-                dk, ik = select(d, kk)
+                dk, ik = topk_smallest(d, kk)
                 return 0, (dk, ik + base)
 
             _, (dks, iks) = jax.lax.scan(body, 0, (vc, sc, lc, bases))
             d_all = jnp.moveaxis(dks, 0, 1).reshape(q.shape[0], -1)
             i_all = jnp.moveaxis(iks, 0, 1).reshape(q.shape[0], -1)
-            dk, pos = select(d_all, min(kk, d_all.shape[1]))
+            dk, pos = topk_smallest(d_all, min(kk, d_all.shape[1]))
             ik = jnp.take_along_axis(i_all, pos, axis=1)
         else:
             init_d = jnp.full((q.shape[0], kk), INF_DIST, jnp.float32)
@@ -140,7 +118,7 @@ def exact_topk(queries: jnp.ndarray, vectors: jnp.ndarray,
                 best_d, best_i = carry
                 vec, sq, vld, base = xs
                 d = score(vec, sq, vld)
-                dk, ik = select(d, kk)
+                dk, ik = topk_smallest(d, kk)
                 ik = ik + base
                 best_d, best_i = merge_topk(best_d, best_i, dk, ik, kk)
                 return (best_d, best_i), None
@@ -150,12 +128,10 @@ def exact_topk(queries: jnp.ndarray, vectors: jnp.ndarray,
 
     if fast_math:
         # f32 rerank of the widened bf16 pool -> exact final ordering.
-        # CRITICAL: rows whose SELECTED distance was INF are masked-out
-        # candidates (dead/filtered/padded) that approx_min_k returned
-        # as fillers — their indices are >= 0, so masking on ik alone
-        # would let the rerank recompute their true distance and
-        # resurrect them into the top-k (confirmed: selective-filter
-        # scans returned non-matching rows).
+        # Rows whose SELECTED distance was INF are masked-out candidates
+        # (dead/filtered/padded) returned as fillers with indices >= 0:
+        # masking on ik alone would let the rerank recompute their true
+        # distance and resurrect them into the top-k.
         was_masked = dk >= INF_DIST
         safe = jnp.clip(ik, 0, n - 1)
         cv = vectors[safe].astype(jnp.float32)          # [Q, kk, D]
@@ -201,34 +177,32 @@ def quantized_topk_candidates(queries: jnp.ndarray, table: jnp.ndarray,
     ``table`` is [N, D] bfloat16 or float16 (scales=None) or int8 with
     per-row ``scales`` [N] f32 such that row_f32 ~= row_int8 * scale.
     int8 rows are dequantized to bf16 per chunk ON DEVICE (a transient
-    [chunk, D] tile) so HBM holds 1 byte/dim while the matmul still
-    rides the bf16 MXU path; a float16 table is upcast per chunk and
-    scored at Precision.HIGH (bf16x3 passes ~ f32-accurate, enough for
-    fp16's 11 significand bits) — same 2 bytes/dim as bf16 but ~8x the
-    mantissa resolution, the rung for tightly clustered data whose
-    separations drown in bf16 rounding; ``v_sq`` keeps the EXACT f32
-    squared norms (4 bytes/row), so cosine/l2 epilogues use true norms
-    with approximate dot products.
+    [chunk, D] tile), so device memory holds 1 byte/dim while the matmul
+    runs on bf16 operands. A float16 table is upcast per chunk and scored
+    at Precision.HIGH: 11 significand bits, ~8x bf16's, at the same 2
+    bytes/dim — the rung for tightly clustered data whose separations
+    drown in bf16 rounding. On a GPU, HIGH runs as TF32, whose 10 stored
+    significand bits hold every fp16 value exactly, so only the query is
+    rounded (to fp16's precision); an fp16 x fp16 dot with f32
+    accumulation measured slower on the H100 at equal recall. ``v_sq``
+    keeps the EXACT f32 squared norms (4 bytes/row), so cosine/l2
+    epilogues use true norms with approximate dot products.
 
     Returns (approx_dists [Q, kk], indices [Q, kk]); callers restore
     exact ordering by reranking the kk winners in f32 against the host
-    store (utils/rerank.host_rerank).  Selection per chunk uses the
-    hardware-binned ``approx_min_k`` on TPU (the exact-TopK extraction
-    passes dominate chunked scans — select1m rows).
+    store (utils/rerank.host_rerank). Each chunk keeps its top-kk and
+    one top_k over the stacked winners makes the final selection.
     """
     n = table.shape[0]
     q = queries.astype(jnp.float32)
     q_sq = jnp.sum(q * q, axis=-1)
-    q_bf = q.astype(jnp.bfloat16)
-    on_tpu = jax.devices()[0].platform == "tpu"
     from hnsw_tpu.ops.distance import _epilogue
 
     fp16 = scales is None and table.dtype == jnp.float16
+    q_bf = q.astype(jnp.bfloat16)
 
     def score(tab, sc, sq, vld):
         if fp16:
-            # queries stay f32; the fp16 store is the only rounding —
-            # bf16x3 accumulates the product at ~f32 fidelity
             gram = jax.lax.dot_general(
                 q, tab.astype(jnp.float32),
                 dimension_numbers=(((1,), (1,)), ((), ())),
@@ -244,17 +218,10 @@ def quantized_topk_candidates(queries: jnp.ndarray, table: jnp.ndarray,
         d = _epilogue(metric, gram, q_sq, sq)
         return jnp.where(vld[None, :], d, INF_DIST)
 
-    def select(d, m, rt=0.95):
-        if on_tpu:
-            return jax.lax.approx_min_k(d, m, recall_target=rt)
-        return topk_smallest(d, m)
-
     kk = min(kk, n)
     if n <= chunk:
-        # single-chunk: this is the ONLY selection stage, so no margin
-        # stacking protects it — 0.99 target (exact_topk's same rule)
         d = score(table, scales, v_sq, valid)
-        return select(d, kk, rt=0.99)
+        return topk_smallest(d, kk)
     n_pad = ((n + chunk - 1) // chunk) * chunk
     pad = n_pad - n
     if pad:
@@ -264,9 +231,8 @@ def quantized_topk_candidates(queries: jnp.ndarray, table: jnp.ndarray,
         sc = None if scales is None else jnp.pad(scales, (0, pad))
     else:
         # this runs EAGERLY (callers pass multi-GB tables; jitting
-        # would re-trace per shape anyway) — a zero pad still
-        # materializes a full copy outside jit, which OOM'd the 640
-        # -chunk (41.9M int8, 5.4 GB) run. Alias when already aligned.
+        # would re-trace per shape anyway): a zero pad would still
+        # materialize a full copy of the table. Alias when aligned.
         tab, sq, vld, sc = table, v_sq, valid, scales
     n_chunks = n_pad // chunk
     m = min(kk, chunk)
@@ -283,17 +249,13 @@ def quantized_topk_candidates(queries: jnp.ndarray, table: jnp.ndarray,
         else:
             t, c, s, v, base = xs
             d = score(t, c, s, v)
-        dm, im = select(d, m)
+        dm, im = topk_smallest(d, m)
         return 0, (dm, im + base)
 
     xs = (tab, sq, vld, bases) if sc is None else (tab, sc, sq, vld, bases)
     _, (dms, ims) = jax.lax.scan(body, 0, xs)
     d_all = jnp.moveaxis(dms, 0, 1).reshape(q.shape[0], -1)
     i_all = jnp.moveaxis(ims, 0, 1).reshape(q.shape[0], -1)
-    # final select over the stacked winners is EXACT: the matrix is
-    # n_chunks*m wide (thousands, not millions), so one true top_k is
-    # cheap here and stops approx misses compounding across the two
-    # selection stages (bf16 20M first run: .983 with approx-final)
     dk, pos = topk_smallest(d_all, min(kk, d_all.shape[1]))
     ik = jnp.take_along_axis(i_all, pos, axis=1)
     return dk, ik

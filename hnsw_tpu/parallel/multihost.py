@@ -1,15 +1,16 @@
-"""Multi-host (DCN) scale-out: independent index slices + host merge.
+"""Multi-host scale-out: independent index slices + host merge.
 
 The reference sketches (but never implements) a distributed graph with
 consistent hashing, a transport interface, and replicas
-(hnsw-extensions/hnsw-extensions.md:233-271). The TPU-native shape of
-that design follows the hardware: ICI-connected chips inside one slice
-act as ONE index (parallel/sharded, parallel/partitioned — XLA
-collectives); DCN between slices is slow and lock-free coordination is
-host-side, so ACROSS slices the right unit is an INDEPENDENT index per
+(hnsw-extensions/hnsw-extensions.md:233-271). The shape of that design
+here follows the hardware: the cards of one host, joined by a fast
+interconnect, act as ONE index (parallel/sharded, parallel/partitioned —
+XLA collectives); the network between hosts is slow and lock-free
+coordination is host-side, so ACROSS hosts the right unit is an
+INDEPENDENT index per
 slice with deterministic key routing and a host-side top-k merge — the
-"scaling-book" recipe: collectives ride ICI, only query fan-out and
-k-sized results ride DCN.
+usual recipe: collectives ride the interconnect inside a host, only
+query fan-out and k-sized results ride the network between hosts.
 
 ``Transport`` abstracts how a slice is reached; ``LocalTransport`` runs
 slices in-process (tests, single-host), and any RPC layer can implement
@@ -32,7 +33,7 @@ from hnsw_tpu.ops.distance import INF_DIST
 
 class Transport:
     """How to reach a slice. Implementations provide two calls; both are
-    synchronous (callers batch; DCN latency amortizes over the batch)."""
+    synchronous (callers batch; network latency amortizes over the batch)."""
 
     def num_slices(self) -> int:
         raise NotImplementedError
@@ -75,7 +76,7 @@ class MultiHostIndex:
             raise ValueError("replicas must be in [1, num_slices]")
         self.transport = transport
         self.replicas = replicas
-        # Slice calls fan out concurrently: over DCN each slice's
+        # Slice calls fan out concurrently: over the network each slice's
         # latency is independent, so sequential fan-out would sum them.
         # The pool is per-index and sized to the slice count (bounded).
         self._pool = ThreadPoolExecutor(
@@ -161,7 +162,7 @@ class MultiHostIndex:
                      ) -> Tuple[List[List[Any]], np.ndarray]:
         """Fan the batch to every slice, merge top-k host-side.
 
-        Only (queries down, k results up) cross the DCN boundary —
+        Only (queries down, k results up) cross the network between hosts —
         per-slice work stays inside its own mesh/process. Duplicate
         keys from replicas are deduped keeping the best distance.
         """

@@ -2,25 +2,24 @@
 
 The reference sketches — but never builds — a distributed sharded graph
 (/root/reference/hnsw-extensions/hnsw-extensions.md:233-271: consistent
-hashing, gRPC transport, replicas). Its TPU-native form needs no
-transport: shard the layer-0 neighbor table and the vector store
-row-wise over the mesh, replicate the (tiny) entry structure, and
-exchange the per-hop frontier with XLA collectives over ICI.
+hashing, gRPC transport, replicas). Its device form needs no transport:
+shard the layer-0 neighbor table and the vector store row-wise over the
+mesh, replicate the (tiny) entry structure, and exchange the per-hop
+frontier with XLA collectives.
 
 Why this exists next to parallel/sharded.py: query-sharding (DP)
 replicates the whole graph per device and partition-sharding (EP)
 builds S independent sub-graphs — neither serves a SINGLE graph larger
-than one chip's HBM. Row-sharding does: at fp16 rows a v5e-8 slice
-holds a ~134M-node single graph (16.8M/chip measured single-chip).
+than one device's HBM. Row-sharding does.
 
-Design (all measured trade-offs inherited from core/search.py):
+Design (trade-offs inherited from core/search.py):
 
   * Every device runs the SAME lockstep beam over ALL queries — pool
-    state is replicated compute (VPU-cheap sorts/merges, ~0.5 ms/hop).
+    state is replicated compute (cheap sorts/merges).
     What is sharded is the HBM-bound part: the neighbor-row gather and
     the candidate-vector gather, each device touching only rows it
     owns. Exactly one device owns any row, so the exchange is an
-    owner-masked contribution + ``psum`` (an all-reduce riding ICI):
+    owner-masked contribution + ``psum`` (an all-reduce):
       - neighbor ids   [B, E*M]  int32  (~256 KB at B=1024, E=2, M=32)
       - candidate dist [B, E*M]  f32    (same)
     vs all-gathering gathered vectors [B, E*M, D] — D× more bytes.
@@ -29,8 +28,8 @@ Design (all measured trade-offs inherited from core/search.py):
     all-reduce by nature, not a shift.
 
   * Entry = replicated pivot table (Graph.entry_mode="pivots", the
-    engine's measured TPU-first replacement for upper-layer descent:
-    one MXU matmul over ~sqrt(N) pivots). The blueprint's "replicated
+    engine's replacement for upper-layer descent: one matmul over
+    ~sqrt(N) pivots). The blueprint's "replicated
     upper layers" would add pointer-chasing hops whose row gathers are
     shard-remote — strictly worse than the pivot matmul that is already
     the production entry mode at scale (CLAUDE.md block_hop rows).

@@ -222,11 +222,11 @@ class SocketTransport(Transport):
                  request_timeout: Optional[float] = None):
         """``timeout`` bounds CONNECT only. ``request_timeout`` is the
         per-request deadline once connected — default None (no
-        deadline): a slice's first device-to-host transfer can stall
-        35-60 s (minutes after a killed TPU process), so a 30 s
-        request deadline would spuriously fail healthy slices during
-        warmup. A request timeout raises TimeoutError and is NEVER
-        reconnect-replayed (the request may still be executing)."""
+        deadline): a slice's first request can include its compiles,
+        so a short request deadline would spuriously fail healthy
+        slices during warmup. A request timeout raises TimeoutError and
+        is NEVER reconnect-replayed (the request may still be
+        executing)."""
         self.addrs = [tuple(a) for a in addrs]
         self.timeout = timeout
         self.request_timeout = request_timeout
@@ -246,7 +246,7 @@ class SocketTransport(Transport):
                                              timeout=self.timeout)
                 s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 # switch from the connect timeout to the per-request
-                # deadline (None = block: TPU warmup stalls are normal)
+                # deadline (None = block: warmup compiles are normal)
                 s.settimeout(self.request_timeout)
                 return s
             except OSError as e:
@@ -284,7 +284,7 @@ class SocketTransport(Transport):
                 return self._roundtrip(sock, method, args, kw)
             except socket.timeout:
                 # Deadline expired but the slice may STILL be executing
-                # the request (e.g. a TPU warmup stall) — the stream is
+                # the request (e.g. a warmup compile) — the stream is
                 # mid-frame and a replay could double-apply a write.
                 # Drop the connection and surface the timeout as-is.
                 self._drop(slice_id)

@@ -1,9 +1,9 @@
-"""Multi-device execution over a TPU mesh.
+"""Multi-device execution over a device mesh.
 
 The reference has NO distributed backend (SURVEY.md §2.7) — a sharded
 graph exists only as a prose sketch (hnsw-extensions.md:233-271:
-consistent hashing + gRPC transport). The TPU-native equivalent needs no
-transport at all: shardings + XLA collectives over ICI.
+consistent hashing + gRPC transport). The device equivalent needs no
+transport at all: shardings + XLA collectives.
 
 Two axes of scale:
 
@@ -47,7 +47,7 @@ def sharded_exact_topk(queries: jnp.ndarray, vectors: jnp.ndarray,
                        metric: str = "cosine", mesh: Mesh,
                        axis: str = "data"
                        ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Row-sharded exact k-NN: local MXU scan + global top-k merge.
+    """Row-sharded exact k-NN: local matmul scan + global top-k merge.
 
     vectors/v_sq/valid are sharded along rows; queries replicated.
     Returned indices are GLOBAL row ids. Row count must divide evenly by
@@ -92,10 +92,9 @@ def sharded_quantized_candidates(queries: jnp.ndarray,
     reduced-precision shard (bf16/fp16 table with scales=None, or int8
     with per-row scales — ops/topk.quantized_topk_candidates), nominates kk
     local candidates, and an all-gather + exact merge returns the
-    global kk.  At 33.5M int8 rows per 16 GB chip (measured single-chip,
-    exactBig rows) a v5e-8 slice holds ~268M vectors; the caller
-    restores exact f32 ordering with ONE host rerank of the merged pool
-    (utils/rerank.host_rerank), exactly as in the single-chip mode.
+    global kk.  The caller restores exact f32 ordering with ONE host
+    rerank of the merged pool (utils/rerank.host_rerank), exactly as in
+    the single-device mode.
     Returned indices are GLOBAL row ids; rows must divide evenly by the
     mesh size (pad with valid=False rows)."""
     from hnsw_tpu.ops.topk import quantized_topk_candidates
@@ -150,7 +149,7 @@ def sharded_ivf_candidates(queries: jnp.ndarray, cents: jnp.ndarray,
     its block axis, centroids are replicated, and every device runs the
     probe routing + a probe-MASKED scan of its local blocks, nominates
     k local candidates, and a global top-k merges the all-gathered
-    per-shard winners over ICI.
+    per-shard winners.
 
     block_part [NB] int32 — owning partition of each block (-1 for pad
     blocks). NB must divide evenly by the mesh size (pad with empty
@@ -257,7 +256,7 @@ def partitioned_graph_search(graphs: DeviceGraph, queries: jnp.ndarray, *,
                              ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Partition-sharded HNSW (expert-parallel analogue, SURVEY.md §2.7):
     each device owns an independent sub-graph over its partition of the
-    data (the TPU-native version of hybrid/partitioner.go routing).
+    data (the device version of hybrid/partitioner.go routing).
     ``graphs`` holds stacked per-partition arrays with a leading device
     axis: vectors [S, cap, D], neighbors [S, L, cap, M], entry [S], ...
     Every device searches its own sub-graph for ALL queries; the global

@@ -1,8 +1,8 @@
 """Host-side key <-> dense-slot mapping and the padded vector store.
 
 The reference is generic over ordered key types and drags that genericity
-through every layer (parquet/key_utils.go:42-235's coercion matrix). The
-TPU rebuild absorbs ALL key handling at the host boundary: devices only
+through every layer (parquet/key_utils.go:42-235's coercion matrix). This
+rebuild absorbs ALL key handling at the host boundary: devices only
 ever see dense int32 slot ids; keys stay in a Python dict. Any hashable
 key type works (int, str, bytes, tuples, ...).
 """

@@ -13,6 +13,32 @@ import time
 from typing import Dict, Iterator, Optional
 
 
+def card_name_and_power() -> str:
+    """``name, power.limit`` of the first GPU as ``nvidia-smi`` reports
+    it, read by a child process that stays off JAX."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_header(require_gpu: bool = True) -> dict:
+    """What a measurement ran on: JAX's platform, device kind and device
+    count, plus the card's name and power limit. Raises RuntimeError
+    when ``require_gpu`` and JAX found no GPU — a measurement path does
+    not fall back to the CPU."""
+    import jax
+    devs = jax.devices()
+    platform = devs[0].platform
+    if require_gpu and platform != "gpu":
+        raise RuntimeError(f"no GPU found (JAX platform {platform!r})")
+    return {"platform": platform, "device_kind": devs[0].device_kind,
+            "device_count": len(devs),
+            "card": card_name_and_power() if platform == "gpu" else None}
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str) -> Iterator[None]:
     """Capture a JAX device profile (open in TensorBoard/Perfetto)."""

@@ -2,8 +2,8 @@
 (vectortypes/types.go:11-44, distance.go:56-87, vector/vector.go:24-50).
 
 A Surface measures distance between values of any type T; ContraMap
-lifts a vector surface onto T via a projection T -> vector. On TPU the
-projection also powers batched scoring: project once, score with one
+lifts a vector surface onto T via a projection T -> vector. On a device
+the projection also powers batched scoring: project once, score with one
 matmul.
 """
 
@@ -69,8 +69,8 @@ class VectorDistance(Generic[T]):
 
     def batch(self, items_a: Sequence[T], items_b: Sequence[T],
               metric: str = None) -> np.ndarray:
-        """Batched [A, B] distances: project once, one matmul — the TPU
-        upgrade over per-pair calls."""
+        """Batched [A, B] distances: project once, one matmul — the
+        batched upgrade over per-pair calls."""
         cm = getattr(self.surface, "contra_map", None)
         base = getattr(self.surface, "surface", self.surface)
         m = getattr(base, "metric", None)

@@ -6,7 +6,7 @@
 // [cap] float32. This is the native replacement for the pure-Python
 // sequential path (core/host_build.py): incremental inserts, deletes
 // with in-edge sweep + replenish, and batched CPU search. Semantics
-// match the TPU bulk builder: classic pool-ef beam search, diversity
+// match the device bulk builder: classic pool-ef beam search, diversity
 // -heuristic edge selection with pruned backfill, per-layer degree caps
 // (m0 on layer 0). Reference behaviors it reproduces: geometric level
 // cap (graph.go:370-385 — levels are sampled Python-side and passed
@@ -561,7 +561,7 @@ int64_t hnsw_delete_batch(float* vectors, float* sq_norms,
 
 // Batched CPU search (the host serving path / oracle).
 //
-// pivots/n_piv/n_seed: pivot-seeded entry (the MXU coarse-scan trick
+// pivots/n_piv/n_seed: pivot-seeded entry (the device coarse-scan trick
 // ported down, Graph.entry_mode="pivots"): score the pivot subset with
 // SIMD dots, seed the layer-0 beam with the n_seed best basins, and
 // skip the upper-layer elevator entirely. n_piv == 0 = classic descent.

@@ -1,4 +1,4 @@
-"""Concurrency contract (VERDICT r3 missing #1).
+"""Concurrency contract.
 
 The reference serves concurrent Search under sync.RWMutex
 (/root/reference/graph.go:328) and proves it with goroutine storms

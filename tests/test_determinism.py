@@ -2,7 +2,7 @@
 
 The reference's thread-safety storms (graph_test.go:461,
 graph_benchmark_test.go:123) defend against data races; the functional
-TPU engine replaces them with determinism guarantees (SURVEY.md §4):
+device engine replaces them with determinism guarantees (SURVEY.md §4):
 identical results across runs, batch compositions, and shardings.
 """
 

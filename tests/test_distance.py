@@ -54,7 +54,8 @@ def test_euclidean_alias():
 
 def test_zero_vector_cosine_no_nan():
     # The reference lets zero vectors produce NaN (graph.go:65-66 comment);
-    # we deliberately guard with an epsilon so TPU top-k stays well ordered.
+    # we deliberately guard with an epsilon so device top-k stays well
+    # ordered.
     z = np.zeros((1, 4), np.float32)
     v = make_vectors(3, 4)
     d = np.asarray(pairwise_dist(z, v, metric="cosine"))
@@ -87,7 +88,7 @@ def _register_manhattan():
 
 
 def test_custom_metric_usable_in_graph_and_exact(tmp_path):
-    """VERDICT item 3: registered metrics work end-to-end — Graph build
+    """registered metrics work end-to-end — Graph build
     + search + checkpoint round-trip + ExactIndex, with recall measured
     against the metric's own oracle (reference: pluggable DistanceFunc,
     distance.go:12,44; vectortypes/types.go:18)."""

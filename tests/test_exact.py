@@ -123,7 +123,7 @@ def test_pallas_k_above_32_interpret():
     assert np.array_equal(np.asarray(i_), gt_i)
 
 def test_fast_math_does_not_resurrect_masked_rows():
-    """Review regression: approx_min_k returns masked-out (dead/
+    """Review regression: the widened top-k returns masked-out (dead/
     filtered) rows as INF fillers with VALID indices; the f32 rerank
     must not recompute their true distances and re-admit them."""
     import jax.numpy as jnp

@@ -1,9 +1,8 @@
-"""Fast serving paths: approx-selection exact scan, bitonic pool merge,
+"""Fast serving paths: widened-top-k exact scan, bitonic pool merge,
 HybridConfig.fast_exact.
 
-On the CPU backend approx_min_k falls back to an exact reduction, so
-these pin code-path correctness; the measured TPU recall/qps points
-live in benchmarks/results_tpu_r2.jsonl (select1m / merge_ab rows).
+These pin code-path correctness; recall and speed on the card come from
+``chip_smoke.py``.
 """
 
 import jax.numpy as jnp

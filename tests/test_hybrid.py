@@ -259,7 +259,7 @@ def test_adaptive_batch_search_groups_by_strategy():
 
 @pytest.mark.parametrize("kind", ["random", "clustered"])
 def test_target_recall_routing_meets_target(kind):
-    """VERDICT item 6: search(..., target_recall=) picks a (tier, param)
+    """search(..., target_recall=) picks a (tier, param)
     that actually meets the target, measured on held-out queries."""
     from hnsw_tpu.ops.topk import np_exact_topk
     n, d, k, target = 2000, 24, 10, 0.95
@@ -521,7 +521,7 @@ def test_strategy_stats_running_sums_match_window():
 
 
 def test_batch_delete_facades_single_sweep(monkeypatch, tmp_path):
-    """VERDICT r3 item 4: the Hybrid/Adaptive/DiskGraph batch_delete
+    """the Hybrid/Adaptive/DiskGraph batch_delete
     facades must route through Graph.batch_delete's ONE vectorized
     in-edge sweep — never a per-key delete() loop (O(B*N*M) where
     O(N*M) exists) — while preserving per-key success flags."""
@@ -579,7 +579,7 @@ def test_batch_delete_facades_single_sweep(monkeypatch, tmp_path):
 
 
 def test_bandit_capacity_arm_demoted_on_clustered_data():
-    """VERDICT r3 item 8: the bandit's capacity arms. Tight clusters
+    """the bandit's capacity arms. Tight clusters
     break int8 ranking (state._int8_block_fit physics) — the oracle
     probe measures it and the quality floor abandons the arm within
     ONE probe interval, serving the champion's results instead. The
@@ -666,7 +666,7 @@ def test_bandit_stream_arm_serves_and_is_probed(tmp_path):
 
 
 def test_bandit_ivf_arm_elected_on_clustered_data():
-    """VERDICT r4 item 4: the bandit's IVF arm. On clustered >=50k data
+    """the bandit's IVF arm. On clustered >=50k data
     the auto-nprobe IVF tier meets the recall floor while a graph arm
     at its configured ef and the LSH buckets measure below it — the
     meets-target-first selection key must elect ivf over both

@@ -337,7 +337,7 @@ def test_appender_async_and_validation():
 def test_incremental_reopen_recall_parity(tmp_path):
     """The delta reopen path (restore structure + insert only the WAL
     keys) must serve the same quality as a from-scratch build of the
-    full key set — the VERDICT r2 item-4 parity criterion, on a REAL
+    full key set — the parity criterion, on a REAL
     build (the lifecycle benchmark uses synthetic edges, where delta
     parity is meaningless)."""
     n, extra, d, k = 400, 40, 16, 10
@@ -406,7 +406,7 @@ def test_codec_int_key_fast_path_and_mixed_fallback(tmp_path):
 
 
 def test_calibration_persists_through_codec(tmp_path):
-    """VERDICT r3 weak #8: calibrate_ef results survive a checkpoint —
+    """calibrate_ef results survive a checkpoint —
     a reopened index must serve from the cached rung WITHOUT re-running
     the host oracle scan (minutes at 8M on the 1-core host)."""
     from hnsw_tpu.io.codec import load_graph, save_graph

@@ -129,7 +129,7 @@ def test_partitioned_graph_class_end_to_end():
 
 
 def test_multihost_shards_route_and_merge():
-    """DCN scale-out: independent slices + host merge (the reference's
+    """Multi-host scale-out: independent slices + host merge (the reference's
     unimplemented distributed sketch, hnsw-extensions.md:233-271)."""
     import numpy as np
     from hnsw_tpu.index.exact import ExactIndex

@@ -1,8 +1,8 @@
-"""Chunked relay transfers (utils/transfer.py).
+"""Chunked host<->device transfers (utils/transfer.py).
 
 Tiny chunk_bytes force the multi-chunk path; correctness = bit-exact
 round trips including device-side fill padding and per-chunk dtype
-conversion. No reference analogue (relay-transport plumbing).
+conversion. No reference analogue (transfer plumbing).
 """
 import numpy as np
 import pytest
@@ -68,7 +68,7 @@ def test_get_scalarish():
 def test_put_gate_bounds_padded_target_not_source():
     """A small source padded into a large target must ride the chunked
     path (device-side fill) — the single-shot gate bounds the bytes
-    that cross the link, i.e. the PADDED buffer, not the source."""
+    transferred, i.e. the PADDED buffer, not the source."""
     a = np.arange(3 * 4, dtype=np.float32).reshape(3, 4)
     # target = 64 rows x 16 B = 1024 B > 64 B limit; source = 48 B
     dev = chunked_put(a, fill=-1, shape=(64, 4), chunk_bytes=64)
